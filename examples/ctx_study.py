@@ -1,4 +1,4 @@
-"""High-plane context-model study (VERDICT r3 item 5).
+"""High-plane context-model study.
 
 Measures, on the six bench corpora, how much a conditional entropy model
 on the HIGH plane could save over the shipping order-0 tables — BEFORE
@@ -20,7 +20,7 @@ conditional entropies include the per-context table cost a real stream
 would carry (nctx*256 12-bit probabilities, amortized over the batch).
 
 Run: JAX_PLATFORMS=cpu python examples/ctx_study.py
-Results recorded in docs/ROUND4.md.  Reference stance being tested:
+Reference stance being tested:
 "only the entropy coding matters" (fusion_power_video.cc:166-169).
 """
 
@@ -97,8 +97,8 @@ def main():
 
     from fpv_tpu.utils import testdata
 
-    # --fast: tiny corpora so the script stays CI-runnable (the recorded
-    # round-4 numbers in docs/ROUND4.md come from the full size)
+    # --fast: tiny corpora so the script stays CI-runnable (meaningful
+    # numbers come from the full size)
     n, d = (4, 128) if "--fast" in sys.argv else (16, 512)
     rng = np.random.default_rng(0)
     pl = testdata.plasma_frames(n, d, d, bits=12, seed=5).astype(np.int32)

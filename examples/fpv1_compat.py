@@ -47,7 +47,7 @@ def main() -> None:
     preview3 = r.decode_preview(3)
     print(f"random access: frame {frame3.shape}, preview {preview3.shape}")
 
-    # migrate the archive to the TPU-native container (and back) without
+    # migrate the archive to the FPVT device container (and back) without
     # re-running the capture pipeline — pixels preserved exactly
     fpvt_data = fpv_tpu.transcode_to_fpvt(data, shift=4)
     back = fpv_tpu.transcode_to_fpv1(fpvt_data)

@@ -1,8 +1,8 @@
-"""FPVT (TPU-native) profile: batched device codec, timestamps, previews,
+"""FPVT (device) profile: batched device codec, timestamps, previews,
 frame-granular random access, and byte accounting.
 
-On a TPU the whole batch encodes as ONE fused jit program (model step,
-table building, Pallas rANS kernels); on CPU the same format is produced
+On a GPU the whole batch encodes as ONE fused jit program (model step,
+table building, rANS kernels); on CPU the same format is produced
 by the vectorized numpy engine.
 """
 

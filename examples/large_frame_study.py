@@ -1,33 +1,27 @@
 """Large-frame (4096x4096) chunk-length A/B study.
 
-BENCH large-frame section (bench.py) showed 16 Mpix/frame decoding at
-~378 Mpix/s device-resident vs ~649 at the <=1 Mpix geometries — both on
-the shipping chunk_log2=12 default.  This study asks whether the gap is a
-chunk-geometry artifact (block count / grid shape / per-step window size)
-or intrinsic to the big-payload path:
+Asks whether large-frame decode speed depends on the chunk geometry (block
+count, per-step word group size) or is intrinsic to the big-payload path:
 
 * chunk_log2 in {11, 12, 13} re-encodes the SAME frames (the wire format
   carries chunk_log2 in the header, fpv_tpu/format/fpvt.py:91, so each
   variant is a valid file, not a fork), then times the fused device decode
-  round-robin interleaved (the attached chip's step time drifts +-5-10%;
-  sequential timing is untrustworthy — see docs/DECODE_BOUND.md).
+  round-robin interleaved.
 * Each variant also reports encode time, whole-file size, and a
   previews-off decode time so the 1/16-scale preview pass at this
   geometry (1024x1024 per frame) is priced separately.
 
 Geometry maps (B=4, 4096^2, per plane): chunk 2^11 -> 32 blocks,
-2^12 -> 16, 2^13 -> 8; the decode grid packs blocks into grid cells, so
-this directly varies cells-per-plane while total symbols stay fixed.
+2^12 -> 16, 2^13 -> 8 kernel programs per plane, so this directly varies
+the device parallelism while total symbols stay fixed.
 
 Usage: python examples/large_frame_study.py [--fast] [--reps N]
---fast runs 256x256 x2 frames for CI-speed smoke (geometry labels shift
-accordingly); results meaningful only at full size on the real chip.
-Round-5 outcome: decode is chunk-insensitive once previews ride the
-wavefront CG kernel and their own chunk length (docs/ROUND5.md §8).
+--fast runs 256x256 x2 frames for a smoke run (geometry labels shift
+accordingly; on CPU the kernels run in the Pallas interpreter); results
+are meaningful only at full size on a GPU.
 
-Replaces, as the scaling evidence, the reference's single-threaded
-per-pixel loop which has no geometry sensitivity at all
-(/root/reference/fusion_power_video.cc:296-347).
+The reference's single-threaded per-pixel loop has no geometry
+sensitivity at all (fusion_power_video.cc:296-347).
 """
 
 from __future__ import annotations
@@ -48,6 +42,9 @@ sys.path.insert(
 def run(size: int, frames: int, chunks: list[int], reps: int) -> dict:
     import jax
     import jax.numpy as jnp
+
+    if jax.default_backend() == "cpu":
+        os.environ.setdefault("FPV_TPU_RANS_ENGINE", "interpret")
 
     from fpv_tpu.api.fpvt_codec import (
         FpvtReader,
@@ -107,8 +104,8 @@ def run(size: int, frames: int, chunks: list[int], reps: int) -> dict:
         args = (
             jnp.asarray(arrays["payload"]), jnp.asarray(arrays["plane_offs"]),
             jnp.asarray(arrays["counts"]), jnp.asarray(arrays["states"]),
-            jnp.asarray(arrays["flags"]), jnp.asarray(arrays["sym_tabs"]),
-            jnp.asarray(arrays["fcs"]), rdr._delta_high, rdr._delta_low,
+            jnp.asarray(arrays["flags"]), jnp.asarray(arrays["tables"]),
+            rdr._delta_high, rdr._delta_low,
             jnp.asarray(arrays["const_vals"]),
         )
         jax.block_until_ready(args)

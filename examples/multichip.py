@@ -1,25 +1,27 @@
-"""Multi-chip scaling: whole FPVT files encoded and decoded data-parallel
+"""Multi-device scaling: whole FPVT files encoded and decoded data-parallel
 over a jax.sharding.Mesh.
 
 Every group of mesh-size batches runs as ONE sharded program
 (shard_map over the 'data' axis); the output is byte-identical to the
-single-device writer.  On CPU this runs on virtual devices — start with
-XLA_FLAGS=--xla_force_host_platform_device_count=8; on a TPU slice the
-same code spreads over real chips with collectives riding ICI.
+single-device writer.  On GPUs the mesh spans the cards; on CPU it runs on
+virtual devices — start with
+XLA_FLAGS=--xla_force_host_platform_device_count=8.
 """
 
 import os
 
-# Byte-identity between the sharded and single-device writers holds in the
-# fused-kernel regime (the policy both run on a TPU).  To demonstrate it on
-# CPU we pin the same regime: the TPU kernels in interpret mode (slow — so
-# tiny demo shapes below) and full-lane streams (small files otherwise
-# take the narrow single-device path by design, see FpvtWriter(narrow=...)).
-os.environ.setdefault("FPV_TPU_RANS_ENGINE", "pallas")
-os.environ.setdefault("FPV_TPU_NARROW_MAX", "0")
-
 import jax
 import numpy as np
+
+# Byte-identity between the sharded and single-device writers holds in the
+# fused-kernel regime (the policy both run on a GPU).  To demonstrate it on
+# CPU we ask for the same regime: the GPU kernels in the Pallas interpreter
+# (slow — so tiny demo shapes below) and full-lane streams (small files
+# otherwise take the narrow single-device path by design, see
+# FpvtWriter(narrow=...)).
+if jax.default_backend() == "cpu":
+    os.environ.setdefault("FPV_TPU_RANS_ENGINE", "interpret")
+os.environ.setdefault("FPV_TPU_NARROW_MAX", "0")
 
 from fpv_tpu.api.fpvt_codec import encode_file_fpvt
 from fpv_tpu.parallel import mesh as pmesh

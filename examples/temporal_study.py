@@ -1,7 +1,7 @@
 """Prev-frame (temporal) prediction study.
 
 The FPVT profile, like the reference (fusion_power_video.cc:517-544),
-predicts every frame against ONE static delta frame.  On TPU a
+predicts every frame against ONE static delta frame.  On a device a
 batch-internal prev-frame delta is still batch-parallel-decodable: the
 inverse is a mod-256 cumulative sum along the frame axis (a cheap
 associative scan over B planes), something the reference's frame-at-a-time
@@ -27,7 +27,6 @@ temporal mode independently where the encoder ties it to the high plane's;
 and the low plane is priced order-0 where the encoder ctx16-codes it.
 
 Run: JAX_PLATFORMS=cpu python examples/temporal_study.py [--fast] [--size N D]
-Results recorded in docs/ROUND4.md (captured with --size 16 256).
 """
 
 from __future__ import annotations

@@ -1,35 +1,31 @@
-"""fpv_tpu — TPU-native lossless 16-bit grayscale video compression framework.
+"""fpv_tpu — lossless 16-bit grayscale video compression on an accelerator.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 google/fusion-power-video: byte-plane splitting, delta-frame and
 clamped-gradient prediction, entropy coding, a self-describing container with
 random-access frame index and embedded previews, streaming encode/decode
-sessions, a columnar batch subsystem and an Arrow frontend — plus a
-TPU-native container profile (FPVT) whose entire data path (filter chain and
-chunked rANS entropy coding) runs batched on accelerator.
+sessions, a columnar batch subsystem and an Arrow frontend — plus a batched
+container profile (FPVT) whose entire data path (filter chain and chunked
+rANS entropy coding) runs on the device.
 """
 
 __version__ = "0.1.0"
 
 import os as _os
+import pathlib as _pathlib
+
+# JAX's persistent compilation cache: where JAX_COMPILATION_CACHE_DIR says,
+# otherwise one fixed directory inside the checkout (the path is part of
+# the cache key, so it must not move between runs)
+JIT_CACHE_DIR = _pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"
 
 
 def _enable_jit_cache() -> None:
-    """Persistent XLA compilation cache (compiles are expensive; shapes are
-    stable per stream config, so cache hits are the common case).  Disable
-    with FPV_TPU_CACHE=0."""
-    cache = _os.environ.get(
-        "FPV_TPU_CACHE", _os.path.expanduser("~/.cache/fpv_tpu_jit")
-    )
-    if cache == "0":
-        return
-    try:
-        import jax
+    import jax
 
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):  # else JAX reads it
+        jax.config.update("jax_compilation_cache_dir", str(JIT_CACHE_DIR))
 
 
 _enable_jit_cache()

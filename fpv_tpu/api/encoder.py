@@ -5,7 +5,7 @@ header + compressed delta-frame chunk, ``compress_frame`` queues one frame
 and invokes its callback *in submission order* when the compressed chunk is
 ready, ``finish`` drains everything and writes the frame-index footer.
 
-Differences from the reference are deliberate TPU-first redesign:
+Differences from the reference are a deliberate device-first redesign:
 
 * the worker pool compresses entropy streams concurrently but emission
   order is enforced by task id exactly like the reference's cv_out ordering

@@ -1,4 +1,4 @@
-"""Profile transcoding: FPV1 (reference-compatible) <-> FPVT (TPU-native).
+"""Profile transcoding: FPV1 (reference-compatible) <-> FPVT (batched device profile).
 
 The migration tool for users of the reference (google/fusion-power-video):
 existing .fpv archives convert losslessly to the FPVT profile — whose whole

@@ -16,7 +16,7 @@ Deliberate fixes over the reference (documented defects, SURVEY.md §2.2):
 * queue flags are protected by locks (the reference read ``closing_``
   unlocked, columnar_batch_encoder.cc:27).
 
-TPU-first redesign: the per-frame filter chain runs through the same
+Device-first redesign: the per-frame filter chain runs through the same
 functional ops as everything else; the payload codec is pluggable — "brotli"
 (reference-compatible plane streams) or device-side batched paths via the
 FPVT machinery.

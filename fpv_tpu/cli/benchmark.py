@@ -51,9 +51,6 @@ def render_preview(preview: np.ndarray) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
-    from fpv_tpu.utils.platform import honor_jax_platforms_env
-
-    honor_jax_platforms_env()
     argv = list(sys.argv[1:] if argv is None else argv)
     profile = "fpv1"
     if "--profile" in argv:

@@ -15,9 +15,6 @@ import sys
 
 
 def main(argv: list[str] | None = None) -> int:
-    from fpv_tpu.utils.platform import honor_jax_platforms_env
-
-    honor_jax_platforms_env()
     argv = list(sys.argv[1:] if argv is None else argv)
     if len(argv) != 4:
         sys.stderr.write(

@@ -18,9 +18,6 @@ import numpy as np
 
 
 def main(argv: list[str] | None = None) -> int:
-    from fpv_tpu.utils.platform import honor_jax_platforms_env
-
-    honor_jax_platforms_env()
     argv = list(sys.argv[1:] if argv is None else argv)
     profile = "fpv1"
     if "--profile" in argv:

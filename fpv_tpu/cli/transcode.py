@@ -16,9 +16,6 @@ import sys
 
 
 def main(argv: list[str] | None = None) -> int:
-    from fpv_tpu.utils.platform import honor_jax_platforms_env
-
-    honor_jax_platforms_env()
     argv = list(sys.argv[1:] if argv is None else argv)
     if len(argv) < 1 or argv[0] not in ("fpv1", "fpvt"):
         sys.stderr.write(

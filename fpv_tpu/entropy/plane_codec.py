@@ -5,13 +5,11 @@ whole batch of frames, sharing a single frequency table.  The stream layout
 is the block-interleaved "step-major descending" format of
 fpv_tpu.ops.rans_layout.
 
-Engines:
-* ``pallas`` — the TPU kernels (fpv_tpu.ops.rans_pallas), used when the
-  default backend is a TPU;
+Engines (fpv_tpu.backend.engine chooses; a caller may name one):
+* ``gpu`` / ``interpret`` — the GPU kernels (fpv_tpu.ops.rans_triton),
+  compiled on a GPU or, on request, run in the Pallas interpreter;
 * ``numpy`` — the vectorized host engine (fpv_tpu.ops.rans_numpy), used on
   CPU and as the bit-exact oracle.
-
-Select explicitly with FPV_TPU_RANS_ENGINE=pallas|numpy.
 """
 
 from __future__ import annotations
@@ -24,12 +22,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from fpv_tpu import backend
 from fpv_tpu.entropy.tables import normalize_freqs, normalize_freqs_ctx
 from fpv_tpu.ops import rans_numpy
 from fpv_tpu.ops.rans_layout import (
-    BLOCK_COLS,
     BLOCK_LANES,
-    BLOCK_ROWS,
     CODING_CONST,
     CODING_CTX16,
     CODING_ORDER0,
@@ -46,7 +43,7 @@ DEFAULT_CHUNK_LEN = 512
 # Narrow-stream encoder policy (see rans_layout LANES_MIN): plane batches of
 # at most this many symbols store fewer chunk states by using fewer lanes
 # (each 1024-lane block costs ~3 KB of stored states).  Narrow streams are
-# coded by the host engine (the pallas kernels are 1024-lane), so the cap
+# coded by the host engine (the device kernels are 1024-lane), so the cap
 # also bounds the host coding cost per plane.  Overridable via the
 # FPV_TPU_NARROW_MAX env knob (0 disables narrow streams entirely — used by
 # tests that pin the device geometry on tiny planes).
@@ -204,35 +201,22 @@ def const_plane_stream(
     )
 
 
-def engine_name() -> str:
-    env = os.environ.get("FPV_TPU_RANS_ENGINE")
-    if env:
-        return env
-    try:
-        platform = jax.devices()[0].platform
-    except Exception:
-        platform = "cpu"
-    return "pallas" if platform == "tpu" else "numpy"
-
-
 # ---------------------------------------------------------------------------
 # device-side layout shuffles (jitted, static shapes)
 
 
 @functools.partial(jax.jit, static_argnames=("chunk_len", "nblocks"))
 def _to_block_symbols(plane: jax.Array, chunk_len: int, nblocks: int):
-    """[B, S] u8 -> [nblocks, K, 8, 128] i32 — a pure reshape.
+    """[B, S] u8 -> [nblocks, K, 1024] u8 — a pure reshape.
 
     With the interleaved lane layout (fpv_tpu.ops.rans_layout.chunk_lens),
     the step-major array IS the flat symbol stream: no transposes on device.
     """
-    flat = plane.reshape(-1)
+    flat = plane.reshape(-1).astype(jnp.uint8)
     pad = nblocks * chunk_len * BLOCK_LANES - flat.shape[0]
     if pad:
         flat = jnp.pad(flat, (0, pad))
-    return flat.reshape(
-        nblocks, chunk_len, BLOCK_ROWS, BLOCK_COLS
-    ).astype(jnp.int32)
+    return flat.reshape(nblocks, chunk_len, BLOCK_LANES)
 
 
 @functools.partial(
@@ -241,31 +225,30 @@ def _to_block_symbols(plane: jax.Array, chunk_len: int, nblocks: int):
 def _from_block_symbols(
     syms: jax.Array, nframes: int, plane_size: int, chunk_len: int
 ):
-    """[nblocks, K, 8, 128] i32 -> [B, S] u8 (pure reshape)."""
+    """[nblocks, K, 1024] u8 -> [B, S] u8 (pure reshape)."""
     flat = syms.reshape(-1)[: nframes * plane_size]
     return flat.reshape(nframes, plane_size).astype(jnp.uint8)
 
 
 def ctx_combine_device(prev: jax.Array, sym4: jax.Array) -> jax.Array:
-    """(previous-step symbols, symbols) [nb, K', 8, 128] -> fc indices
+    """(previous-step symbols, symbols) [nb, K', 1024] -> fc indices
     ctx*16+sym (ctx feature defined in fpv_tpu.ops.rans_layout)."""
-    nb, k = sym4.shape[0], sym4.shape[1]
-    p = prev.astype(jnp.int32).reshape(nb, k, BLOCK_LANES)
+    p = prev.astype(jnp.int32)
     al = jnp.roll(p, 1, axis=2)
     ar = jnp.roll(p, -1, axis=2)
-    ctx = (p * 2 + (al != ar).astype(jnp.int32)).reshape(nb, k, 8, 128)
+    ctx = p * 2 + (al != ar).astype(jnp.int32)
     return ctx * CTX_ALPHA + sym4.astype(jnp.int32)
 
 
 @functools.partial(jax.jit, static_argnames=())
 def ctx_indices_device(sym4: jax.Array) -> jax.Array:
-    """[nb, K, 8, 128] nibble symbols (zero-padded) -> fc indices
+    """[nb, K, 1024] nibble symbols (zero-padded) -> fc indices
     ctx*16+sym, the device twin of rans_numpy.encode_ctx_indices (ctx
     feature defined in fpv_tpu.ops.rans_layout)."""
     nb = sym4.shape[0]
     s = sym4.astype(jnp.int32)
     prev = jnp.concatenate(
-        [jnp.zeros((nb, 1, 8, 128), jnp.int32), s[:, :-1]], axis=1
+        [jnp.zeros((nb, 1, BLOCK_LANES), jnp.int32), s[:, :-1]], axis=1
     )
     return ctx_combine_device(prev, s)
 
@@ -330,17 +313,17 @@ def _deinterleave_np(
     return flat[:n]
 
 
-def _quantize_rows(max_count: int, chunk_len: int) -> int:
-    """Round a per-group row count up to limit distinct compile shapes.
+def _quantize_window(max_count: int, chunk_len: int) -> int:
+    """Round a per-group word count up to one of a few buckets, to limit
+    distinct compile shapes.
 
-    Groups are (block, segment) regions, so the worst case is bounded by
-    the segment tile, not the full chunk."""
+    Groups are (block, segment) regions, so the worst case is one word
+    per symbol of one segment, not of the full chunk."""
     from fpv_tpu.ops.rans_layout import SEG_LEN
 
-    worst = min(chunk_len, SEG_LEN) * BLOCK_LANES // BLOCK_COLS
-    step = max(worst // 8, 16)
-    rows = -(-max_count // BLOCK_COLS)
-    return min(-(-rows // step) * step, worst)
+    worst = min(chunk_len, SEG_LEN) * BLOCK_LANES
+    step = max(worst // 8, 2048)
+    return min(-(-max_count // step) * step, worst)
 
 
 def _quantize_cap(total_words: int, chunk_len: int, nblocks: int) -> int:
@@ -350,59 +333,38 @@ def _quantize_cap(total_words: int, chunk_len: int, nblocks: int) -> int:
     return max(step, -(-total_words // step) * step)
 
 
-@functools.partial(jax.jit, static_argnames=("cap", "rows_q"))
+@functools.partial(jax.jit, static_argnames=("cap", "win"))
 def _compact_payload(
-    words: jax.Array, cum: jax.Array, cap: int, rows_q: int
+    words: jax.Array, cum: jax.Array, cap: int, win: int
 ) -> jax.Array:
-    """Concatenate ragged per-block word regions into one tight u16 buffer.
+    """Concatenate ragged per-group word regions into one tight u16 buffer.
 
-    Each block's words are already contiguous at its region start, so the
-    cross-block concat is nblocks contiguous copies: block m's fixed-size
-    rows_q*128 window is placed at offset cum[m]; block m+1's copy starts
-    exactly at cum[m] + count_m and overwrites m's padding garbage.
+    ``words`` is [ngroups, L]; group m's words sit at the start of its row,
+    so the concat is ngroups contiguous copies: group m's first ``win``
+    words are placed at offset cum[m]; group m+1's copy starts exactly at
+    cum[m] + count_m and overwrites m's padding garbage.
     """
-    nblocks, rows, _ = words.shape
-    flat16 = words.astype(jnp.uint16).reshape(nblocks, rows * BLOCK_COLS)
-    win = rows_q * BLOCK_COLS
+    ngroups = words.shape[0]
+    words = words.astype(jnp.uint16)
 
     # fori_loop keeps the buffer carry in place (an unrolled
-    # dynamic_update_slice chain materializes full-buffer copies); UNROLL
-    # several blocks per iteration — XLA pays ~40us of loop overhead per
-    # while step, which dominates at one block per step
+    # dynamic_update_slice chain materializes full-buffer copies); several
+    # groups per iteration amortize the loop's per-step overhead
     unroll = 16
 
     def body(i, out):
         for s in range(unroll):
-            # clamp: the tail re-places the last block at its own offset
+            # clamp: the tail re-places the last group at its own offset
             # (identical bytes, idempotent)
-            m = jnp.minimum(i * unroll + s, nblocks - 1)
-            chunk = jax.lax.dynamic_slice(flat16, (m, 0), (1, win))[0]
+            m = jnp.minimum(i * unroll + s, ngroups - 1)
+            chunk = jax.lax.dynamic_slice(words, (m, 0), (1, win))[0]
             out = jax.lax.dynamic_update_slice(out, chunk, (cum[m],))
         return out
 
     out = jax.lax.fori_loop(
-        0, -(-nblocks // unroll), body, jnp.zeros(cap + win, jnp.uint16)
+        0, -(-ngroups // unroll), body, jnp.zeros(cap + win, jnp.uint16)
     )
     return out[:cap]
-
-
-@functools.partial(jax.jit, static_argnames=("rows",))
-def _expand_payload(
-    payload: jax.Array, cum: jax.Array, counts: jax.Array, rows: int
-) -> jax.Array:
-    """Inverse of :func:`_compact_payload`: tight u16 -> padded u32 blocks.
-
-    ``payload`` must carry rows*128 words of slack beyond the true total;
-    per-block garbage past each count is never addressed by the decoder
-    (word positions are always < count).
-    """
-    nblocks = counts.shape[0]
-    win = rows * BLOCK_COLS
-    starts = cum[:nblocks]
-    w = jax.vmap(lambda c: jax.lax.dynamic_slice(payload, (c,), (win,)))(
-        starts
-    ).astype(jnp.uint32)
-    return w.reshape(nblocks, rows, BLOCK_COLS)
 
 
 # ---------------------------------------------------------------------------
@@ -422,18 +384,18 @@ def _hist_flat(x: jax.Array, nbins: int) -> jax.Array:
     return jnp.sum(eq, axis=(0, 1), dtype=jnp.int32)
 
 
-def _package_pallas(
+def _package_device(
     states_d, words_d, counts_d, b, s, chunk_len, nblocks, freq,
     coding=CODING_ORDER0,
 ) -> PlaneStream:
-    """Host packaging of pallas encode outputs (counts sync + compaction)."""
+    """Host packaging of device encode outputs (counts sync + compaction)."""
     counts = np.asarray(counts_d).reshape(-1)  # [nblocks * nseg] groups
     total = int(counts.sum())
     cap = _quantize_cap(total, chunk_len, nblocks)
-    rows_q = _quantize_rows(int(counts.max()) if len(counts) else 0, chunk_len)
+    win = _quantize_window(int(counts.max()) if len(counts) else 0, chunk_len)
     cum = np.zeros(len(counts) + 1, np.int32)
     cum[1:] = np.cumsum(counts)
-    payload_d = _compact_payload(words_d, jnp.asarray(cum), cap, rows_q)
+    payload_d = _compact_payload(words_d, jnp.asarray(cum), cap, win)
     payload = np.asarray(payload_d)[:total]
     states = np.asarray(states_d).reshape(-1)
     return PlaneStream(
@@ -477,7 +439,7 @@ def encode_plane_batch(
     replaces the coded stream with a CODING_RAW store whenever that is not
     larger (incompressible planes; see rans_layout.CODING_RAW).
     """
-    engine = engine or engine_name()
+    engine = engine or backend.engine()
     b = plane.shape[0]
     if hasattr(plane, "reshape"):
         plane = plane.reshape(b, -1)
@@ -494,7 +456,7 @@ def encode_plane_batch(
     elif lanes is None:
         lanes = BLOCK_LANES
     if lanes != BLOCK_LANES:
-        engine = "numpy"  # the pallas kernels are 1024-lane only
+        engine = "numpy"  # the device kernels are 1024-lane only
     if auto and n:
         if engine == "numpy" or isinstance(plane, np.ndarray):
             plane = np.asarray(plane)
@@ -536,7 +498,7 @@ def encode_plane_batch(
                 ),
                 plane, allow_raw,
             )
-        from fpv_tpu.ops import rans_pallas as rp
+        from fpv_tpu.ops import rans_triton as rt
 
         sym4 = _to_block_symbols(
             jnp.asarray(plane) >> 4, chunk_len, nblocks
@@ -546,15 +508,13 @@ def encode_plane_batch(
         # full-index hist is an exact-support superset (padding included):
         # floor only pairs that can occur
         freq = normalize_freqs_ctx(jhist, floor_mask=jhist > 0)
-        fc, _symtab = rp.ctx_table_arrays(freq)
-        lens_dev = jnp.asarray(lens.reshape(nblocks, BLOCK_ROWS, BLOCK_COLS))
-        states_d, words_d, counts_d = rp.encode_pallas(
-            sym4, lens_dev, jnp.asarray(fc),
-            chunk_len=chunk_len, nblocks=nblocks, prob_bits=CTX_PROB_BITS,
-            ctx_mode=True,
+        states_d, words_d, counts_d = rt.encode(
+            sym4, jnp.asarray(lens), jnp.asarray(rt.ctx_encode_table(freq)),
+            chunk_len, prob_bits=CTX_PROB_BITS, ctx_mode=True,
+            interpret=backend.interpret(),
         )
         return _maybe_raw(
-            _package_pallas(
+            _package_device(
                 states_d, words_d, counts_d, b, s, chunk_len, nblocks, freq,
                 coding=CODING_CTX16,
             ),
@@ -584,85 +544,27 @@ def encode_plane_batch(
             plane, allow_raw,
         )
 
-    from fpv_tpu.ops import rans_pallas as rp
+    from fpv_tpu.ops import rans_triton as rt
 
-    fc, finv, _symtab = rp.table_arrays(freq)
     syms = _to_block_symbols(jnp.asarray(plane), chunk_len, nblocks)
-    lens_dev = jnp.asarray(lens.reshape(nblocks, BLOCK_ROWS, BLOCK_COLS))
-    states_d, words_d, counts_d = rp.encode_pallas(
-        syms, lens_dev, jnp.asarray(fc),
-        chunk_len=chunk_len, nblocks=nblocks,
+    states_d, words_d, counts_d = rt.encode(
+        syms, jnp.asarray(lens), jnp.asarray(rt.encode_table(freq)),
+        chunk_len, interpret=backend.interpret(),
     )
     return _maybe_raw(
-        _package_pallas(
+        _package_device(
             states_d, words_d, counts_d, b, s, chunk_len, nblocks, freq
         ),
         plane, allow_raw,
     )
 
 
-
-
-def pallas_decode_args(stream: PlaneStream):
-    """Production decode_pallas launch arguments for ``stream``.
-
-    Shared by decode_plane_batch and ops.rans_bound (which times
-    latency-model replicas of the decode kernel — the replicas must share
-    the production launch configuration by construction, so they take
-    their arguments from the same code path).  Returns (args, kwargs) for
-    ``rans_pallas.decode_pallas``.
-    """
-    from fpv_tpu.ops import rans_pallas as rp
-
-    b, s, k = stream.nframes, stream.plane_size, stream.chunk_len
-    lens = chunk_lens(b, s, k, stream.lanes)
-    nblocks = len(lens) // stream.lanes
-    states = stream.states.astype(np.uint32)
-    counts = stream.block_counts.astype(np.int64)
-    ctx = stream.coding == CODING_CTX16
-    # fused single-gather decode tables (one u32 entry per slot); fc is
-    # passed for arity but unread by the fused kernel path
-    if ctx:
-        symtab = rp.ctx_fused_table_arrays(stream.freq)
-        fc = np.zeros((2, BLOCK_COLS), np.uint32)
-    else:
-        symtab = rp.fused_table_arrays(stream.freq)
-        fc = np.zeros((2, BLOCK_COLS), np.uint32)
-    rows_q = _quantize_rows(int(counts.max()) if len(counts) else 0, k)
-    rows_alloc = rows_q + 16  # window headroom
-    total = int(counts.sum())
-    cap = _quantize_cap(total, k, nblocks)
-    payload_np = np.zeros(cap + rows_alloc * BLOCK_COLS, np.uint16)
-    payload_np[:total] = stream.payload
-    cum = np.zeros(len(counts) + 1, np.int32)
-    cum[1:] = np.cumsum(counts)
-    words_d = _expand_payload(
-        jnp.asarray(payload_np),
-        jnp.asarray(cum),
-        jnp.asarray(counts.astype(np.int32)),
-        rows_alloc,
-    )
-    args = (
-        jnp.asarray(counts.reshape(-1, 1, 1).astype(np.int32)),
-        jnp.asarray(states.reshape(nblocks, BLOCK_ROWS, BLOCK_COLS)),
-        jnp.asarray(lens.reshape(nblocks, BLOCK_ROWS, BLOCK_COLS)),
-        jnp.asarray(symtab),
-        jnp.asarray(fc),
-        words_d,
-    )
-    kwargs = dict(
-        chunk_len=k, nblocks=nblocks,
-        prob_bits=CTX_PROB_BITS if ctx else 12, ctx_mode=ctx,
-        fused_tab=True,
-    )
-    return args, kwargs
-
-
 def decode_plane_batch(
     stream: PlaneStream, check: bool = True, engine: str | None = None
 ):
-    """Decode a PlaneStream -> [B, S] uint8 (device array on pallas engine)."""
-    engine = engine or engine_name()
+    """Decode a PlaneStream -> [B, S] uint8 (device array on the device
+    engine)."""
+    engine = engine or backend.engine()
     b, s, k = stream.nframes, stream.plane_size, stream.chunk_len
     if stream.coding == CODING_CONST:
         return np.full((b, s), stream.value, np.uint8)
@@ -690,10 +592,25 @@ def decode_plane_batch(
             raise ValueError("rANS stream integrity check failed")
         return _deinterleave_np(syms, b * s, k, stream.lanes).reshape(b, s)
 
-    args, kwargs = pallas_decode_args(stream)
-    from fpv_tpu.ops import rans_pallas as rp
+    from fpv_tpu.ops import rans_triton as rt
 
-    syms, ok = rp.decode_pallas(*args, **kwargs)
+    nblocks = len(lens) // BLOCK_LANES
+    counts = stream.block_counts.astype(np.int32)
+    starts = np.zeros(len(counts), np.int32)
+    starts[1:] = np.cumsum(counts)[:-1]
+    # bucket the payload length so streams share compiled programs
+    payload = np.zeros(_quantize_cap(int(counts.sum()), k, nblocks), np.uint16)
+    payload[: stream.payload.size] = stream.payload
+    table = rt.ctx_fused_table(stream.freq) if ctx else rt.fused_table(
+        stream.freq
+    )
+    syms, ok = rt.decode(
+        jnp.asarray(counts), jnp.asarray(starts), jnp.asarray(payload),
+        jnp.asarray(states.reshape(nblocks, BLOCK_LANES)), jnp.asarray(lens),
+        jnp.asarray(table), k,
+        prob_bits=CTX_PROB_BITS if ctx else 12, ctx_mode=ctx,
+        interpret=backend.interpret(),
+    )
     if check and not bool(jnp.all(ok == 1)):
         raise ValueError("rANS stream integrity check failed")
     out = _from_block_symbols(syms, b, s, k)

@@ -54,7 +54,7 @@ def normalize_freqs_device(
         - jnp.arange(256, dtype=jnp.float32) / 256.0
         - (1.0 - maskf) * 1e9
     )
-    # rank via double argsort — a 256-element scatter costs ~18 ms on TPU
+    # rank via double argsort (no scatter)
     rank = jnp.argsort(jnp.argsort(-key)).astype(jnp.int32)
     # second +1 round wraps after nfloor (the number of masked symbols), not
     # 256 — with a small mask a 256 threshold would land rounds on
@@ -119,12 +119,13 @@ def normalize_freqs_ctx_device(
     onehot = (
         jnp.arange(CTX_ALPHA, dtype=jnp.int32)[None, :] == amax[:, None]
     ).astype(jnp.int32)
-    freq = freq + resid * onehot  # no scatter (TPU scatters are slow)
+    freq = freq + resid * onehot  # no scatter
     return freq.reshape(-1).astype(jnp.uint32)
 
 
 def encode_tables_ctx_device(freq: jax.Array) -> jax.Array:
-    """[NCTX*ALPHA] u32 ctx tables -> fc [4,128]: (f-1) | cum_within << 7."""
+    """[NCTX*ALPHA] u32 ctx tables -> encode table [NCTX*ALPHA] u32:
+    (f-1) | cum_within << 7."""
     from fpv_tpu.ops.rans_layout import CTX_ALPHA, CTX_NCTX, CTX_PROB_BITS
 
     f = freq.reshape(CTX_NCTX, CTX_ALPHA)
@@ -136,42 +137,31 @@ def encode_tables_ctx_device(freq: jax.Array) -> jax.Array:
         axis=1,
     )
     fc = ((f - 1) & ((1 << CTX_PROB_BITS) - 1)) | (cum << CTX_PROB_BITS)
-    return fc.reshape(4, 128)
+    return fc.reshape(-1)
 
 
 def fused_decode_tables_device(freq: jax.Array) -> jax.Array:
-    """freq u32 [256] -> fused single-gather decode table [32, 128] u32.
+    """freq u32 [256] -> fused decode table [PROB_SCALE] u32.
 
-    Device twin of rans_pallas.fused_table_arrays: one entry per slot,
-    ``off << 20 | (f-1) << 8 | sym``.  Per-slot f/cum are fetched with a
-    one-hot [PROB_SCALE, 256] matmul (MXU-friendly; no scatter/gather).
-    All values < 2**13 so the f32 accumulation is exact.
-    """
-    cum_incl = jnp.cumsum(freq.astype(jnp.int32))  # [256]
+    Device twin of rans_triton.fused_table: one entry per slot,
+    ``off << 20 | (f-1) << 8 | sym``.  Per-slot f and cum are integer
+    gathers, exact for every table (entries reach PROB_SCALE)."""
+    freq = freq.astype(jnp.int32)
+    cum_incl = jnp.cumsum(freq)  # [256]
     slots = jnp.arange(PROB_SCALE, dtype=jnp.int32)
-    sym = jnp.sum(
-        cum_incl[None, :] <= slots[:, None], axis=1, dtype=jnp.int32
-    )  # [PROB_SCALE], 0..255
-    onehot = (sym[:, None] == jnp.arange(256, dtype=jnp.int32)[None, :])
-    onehot = onehot.astype(jnp.float32)
-    f_slot = onehot @ freq.astype(jnp.float32)
-    cum_excl = (cum_incl - freq.astype(jnp.int32)).astype(jnp.float32)
-    off = slots - (onehot @ cum_excl).astype(jnp.int32)
-    f1 = f_slot.astype(jnp.int32) - 1
-    entries = (
+    sym = jnp.searchsorted(cum_incl, slots, side="right").astype(jnp.int32)
+    f = freq[sym]
+    off = slots - (cum_incl - freq)[sym]
+    return (
         (off.astype(jnp.uint32) << 20)
-        | (f1.astype(jnp.uint32) << 8)
+        | ((f - 1).astype(jnp.uint32) << 8)
         | sym.astype(jnp.uint32)
     )
-    return entries.reshape(PROB_SCALE // 128, 128)
 
 
-def encode_tables_device(freq: jax.Array):
-    """freq u32 [256] -> (fc [2,128] u32, finv_bits [2,128] u32) on device."""
+def encode_tables_device(freq: jax.Array) -> jax.Array:
+    """freq u32 [256] -> encode table [256] u32: (f-1) | cum << 12."""
     cum = jnp.concatenate(
         [jnp.zeros(1, jnp.uint32), jnp.cumsum(freq)[:-1].astype(jnp.uint32)]
     )
-    fc = ((freq - 1) & 0xFFF) | (cum << PROB_BITS)
-    finv = 1.0 / freq.astype(jnp.float32)
-    finv_bits = jax.lax.bitcast_convert_type(finv, jnp.uint32)
-    return fc.reshape(2, 128), finv_bits.reshape(2, 128)
+    return ((freq - 1) & 0xFFF) | (cum << PROB_BITS)

@@ -80,7 +80,7 @@ def cg_decode_np(plane: np.ndarray) -> np.ndarray:
 
     Sequential reconstruction (fusion_power_video.cc:326-333): each pixel
     needs the already-reconstructed n/w/nw.  This is the numpy oracle; the
-    TPU path uses an anti-diagonal wavefront (fpv_tpu.ops.cg).
+    FPVT profile's 2D CG avoids the row wrap (:func:`cg2d_decode_np`).
     """
     plane = np.asarray(plane, dtype=np.uint8)
     h, w = plane.shape
@@ -98,6 +98,26 @@ def cg_decode_np(plane: np.ndarray) -> np.ndarray:
         nw = out[i - xs - 1]
         out[i] = (int(out[i]) + int(clamped_gradient_np(n, ww, nw))) & 0xFF
     return out.reshape(h, w)
+
+
+def cg2d_decode_np(res: np.ndarray) -> np.ndarray:
+    """Inverse of the FPVT 2D CG residual (fpv_tpu.ops.predict.cg2d_encode)
+    for [B, H, W] uint8 planes: row 0 verbatim, column 0 north-predicted,
+    interior clamped-gradient.  Anti-diagonal wavefront: diagonal d needs
+    only diagonals d-1 and d-2, so each step is one vectorised update."""
+    res = np.asarray(res, dtype=np.uint8)
+    b, h, w = res.shape
+    # pixel (y, x) lives at out[:, y+1, x+1]; row/column 0 of out are zero
+    out = np.zeros((b, h + 1, w + 1), np.uint8)
+    for d in range(h + w - 1):
+        y = np.arange(max(0, d - w + 1), min(h, d + 1))
+        x = d - y
+        n = out[:, y, x + 1]
+        pred = clamped_gradient_np(n, out[:, y + 1, x], out[:, y, x])
+        pred = np.where(x == 0, n, pred)
+        pred = np.where(y == 0, 0, pred).astype(np.uint8)
+        out[:, y + 1, x + 1] = res[:, y, x] + pred
+    return out[:, 1:, 1:]
 
 
 def cg_decode(plane: np.ndarray) -> np.ndarray:

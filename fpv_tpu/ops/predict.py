@@ -13,7 +13,7 @@ Decode-side:
   gives the reconstruction an O(H*W) critical path — inherently sequential —
   so compat decode runs on host (numpy/native); see
   :func:`fpv_tpu.models.predictors.cg_decode_np`.
-* FPVT 2D CG: the TPU-native profile defines CG without the wrap (row 0
+* FPVT 2D CG: the FPVT profile defines CG without the wrap (row 0
   verbatim, column 0 north-predicted), decodable by an anti-diagonal
   wavefront with O(H+W) depth — :func:`cg2d_decode`.
 * FPVT "up" predictor: pure north prediction; decode is a mod-256 cumulative
@@ -26,6 +26,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
+
+from fpv_tpu import backend
 
 
 def clamped_gradient(n: jax.Array, w: jax.Array, nw: jax.Array) -> jax.Array:
@@ -83,192 +85,88 @@ def cg2d_encode(plane: jax.Array) -> jax.Array:
     return jnp.where(rows == 0, plane, out)
 
 
-def _cg2d_decode_impl(res: jax.Array) -> jax.Array:
-    """Anti-diagonal wavefront reconstruction of :func:`cg2d_encode`.
+def _cg2d_kernel(res_ref, out_ref, *, h: int, w: int, hp: int,
+                 interpret: bool):
+    """One frame: walk the H+W-1 anti-diagonals, one lane per row.
 
-    Skew trick: shift row y right by y so anti-diagonals become columns, then
-    ``lax.scan`` over columns carrying the previous two skewed columns.  Depth
-    H+W-1; each step is a [B, H] vector op.
-    """
-    b, h, w = res.shape
-    # skewed buffer: [B, H, W + H] with row y occupying columns y .. y+W-1
-    skew = jnp.zeros((b, h, w + h), dtype=res.dtype)
-    rows = jnp.arange(h)[:, None]
-    cols = jnp.arange(w)[None, :]
-    skew = skew.at[:, rows, cols + rows].set(res)
+    Lane y reconstructs (y, d-y) on diagonal d.  Its west neighbour is the
+    value it made on the previous diagonal and its north-west neighbour is
+    the north value it read there, so both stay in registers; only the
+    north neighbour, made by lane y-1 one diagonal earlier, comes back
+    through memory, behind a block barrier."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
 
-    row_idx = jnp.arange(h)
+    b = pl.program_id(0)
+    y = jnp.arange(hp, dtype=jnp.int32)
+    yc = jnp.minimum(y, h - 1)
+    ym = jnp.maximum(y - 1, 0)
 
-    def step(carry, d):
-        prev1, prev2 = carry  # skewed columns d-1 and d-2, each [B, H]
-        cur = jax.lax.dynamic_slice_in_dim(skew, d, 1, axis=2)[:, :, 0]
-        # for skewed column d, row y holds original (y, d-y); neighbors:
-        # n  = (y-1, d-y)   -> skewed col d-1, row y-1
-        # w  = (y,   d-y-1) -> skewed col d-1, row y
-        # nw = (y-1, d-y-1) -> skewed col d-2, row y-1
-        n = jnp.roll(prev1, 1, axis=1)
-        ww = prev1
-        nw = jnp.roll(prev2, 1, axis=1)
-        x = d - row_idx  # original column per row
-        pred = jnp.where(
-            (row_idx == 0)[None, :],
-            jnp.zeros_like(cur),
-            jnp.where((x == 0)[None, :], n, clamped_gradient(n, ww, nw)),
-        )
-        valid = ((x >= 0) & (x < w))[None, :]
-        new = jnp.where(valid, cur + pred, jnp.zeros_like(cur))
-        return (new, prev1), new
+    def step(d, carry):
+        west, northwest = carry
+        x = d - y
+        valid = (y < h) & (x >= 0) & (x < w)
+        xc = jnp.clip(x, 0, w - 1)
+        cur = plgpu.load(res_ref.at[b, yc, xc], mask=valid, other=0)
+        north = plgpu.load(
+            out_ref.at[b, ym, xc], mask=valid & (y > 0), other=0
+        ).astype(jnp.int32)
+        lo = jnp.minimum(north, west)
+        hi = jnp.maximum(north, west)
+        grad = (north + west - northwest) & 0xFF
+        cg = jnp.where(northwest > hi, lo,
+                       jnp.where(northwest < lo, hi, grad))
+        pred = jnp.where(y == 0, 0, jnp.where(x == 0, north, cg))
+        new = (cur.astype(jnp.int32) + pred) & 0xFF
+        plgpu.store(out_ref.at[b, y, xc], new.astype(jnp.uint8), mask=valid)
+        if not interpret:
+            plgpu.debug_barrier()
+        return new, north
 
-    (_, _), cols_out = jax.lax.scan(
-        step,
-        (jnp.zeros((b, h), res.dtype), jnp.zeros((b, h), res.dtype)),
-        jnp.arange(w + h - 1),
-    )
-    # cols_out: [W+H-1, B, H] skewed columns; unskew back to [B, H, W]
-    skew_full = jnp.moveaxis(cols_out, 0, 2)  # [B, H, W+H-1]
-    return skew_full[:, rows, cols + rows]
-
-
-_WAVE_DBLK = 256  # skewed diagonals per pallas grid step
-
-
-def _cg2d_wavefront_kernel(skew_ref, out_ref, p1, p2, *, w: int, h: int,
-                           h8: int, dblk: int):
-    """One grid step: reconstruct ``dblk`` consecutive anti-diagonals.
-
-    Refs: skew/out [dblk, S, 128] u8 where S = B*h8 and sublane row
-    s = b*h8 + y//128, lane = y%128 — diagonal d of the batch is ONE
-    clean (S, 128) tile slab at the UNTILED leading index d, so the
-    per-step dynamic load/store has no alignment constraint and no
-    packed-u8 sub-tile slicing (the [B, d, Hpad]-layout variant measured
-    17 us/diagonal from exactly that; see docs/ROUND5.md).  p1/p2 are
-    [S, 128] i32 VMEM scratch carrying the previous two reconstructed
-    diagonals across grid steps.
-    """
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    g = pl.program_id(0)
-
-    @pl.when(g == 0)
-    def _():
-        p1[...] = jnp.zeros_like(p1)
-        p2[...] = jnp.zeros_like(p2)
-
-    s_iota = jax.lax.broadcasted_iota(jnp.int32, p1.shape, 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, p1.shape, 1)
-    yi = (s_iota % h8) * 128 + lane  # original row of this (s, lane)
-
-    def shift_y(v):
-        # value at y-1: lane-1 in the same sublane row, or the previous
-        # row's lane 127 at lane 0.  Cross-batch-group garbage (y==0)
-        # is masked by the yi==0 select below.
-        x1 = pltpu.roll(v, 1, 1)
-        return jnp.where(lane == 0, pltpu.roll(x1, 1, 0), x1)
-
-    def step(j, _):
-        d = g * dblk + j
-        cur = skew_ref[j].astype(jnp.int32)
-        prev1 = p1[...]
-        # neighbors in skewed space: n=(y-1,d-y) -> diag d-1 lane y-1;
-        # w=(y,d-y-1) -> diag d-1 lane y; nw=(y-1,d-y-1) -> diag d-2
-        # lane y-1.
-        n = shift_y(prev1)
-        nw = shift_y(p2[...])
-        lo = jnp.minimum(n, prev1)
-        hi = jnp.maximum(n, prev1)
-        grad = (n + prev1 - nw) & 0xFF
-        cg = jnp.where(nw > hi, lo, jnp.where(nw < lo, hi, grad))
-        x = d - yi  # original column of row y on diagonal d
-        pred = jnp.where(yi == 0, 0, jnp.where(x == 0, n, cg))
-        new = jnp.where((x >= 0) & (x < w) & (yi < h), (cur + pred) & 0xFF, 0)
-        out_ref[j] = new.astype(jnp.uint8)
-        p2[...] = prev1
-        p1[...] = new
-        return 0
-
-    jax.lax.fori_loop(0, dblk, step, 0)
+    zero = jnp.zeros((hp,), jnp.int32)
+    jax.lax.fori_loop(0, h + w - 1, step, (zero, zero))
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def _cg2d_decode_pallas(res: jax.Array, interpret: bool = False):
-    """Pallas wavefront reconstruction of :func:`cg2d_encode` ([B,H,W] u8).
-
-    Same skew trick as :func:`_cg2d_decode_impl` (anti-diagonals become
-    rows; depth H+W-1), but the sequential walk runs inside ONE kernel
-    with the two carried diagonals resident in VMEM, so a step costs
-    vector-op latency instead of an XLA scan step's dispatch.  The skew
-    itself is built with log2(H) masked static rolls (a barrel shifter)
-    rather than one big gather — gathers with 2-D index arrays lower to
-    per-row loops on TPU."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+def _cg2d_decode_kernel(res: jax.Array, interpret: bool = False):
+    """Wavefront reconstruction of :func:`cg2d_encode` ([B,H,W] u8), one
+    GPU program per frame (Pallas through Triton).  Rows are padded to a
+    power of two (Triton block sizes) and the padding lanes write rows of
+    their own, cropped at the end."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
 
     b, h, w = res.shape
-    ndiag = h + w - 1
-    hpad = -(-h // 128) * 128
-    h8 = hpad // 128
-    s_rows = b * h8
-    # window VMEM budget: in+out blocks are dblk*s_rows*128 u8 each,
-    # double buffered across grid steps — cap each at ~2 MB so tall
-    # batches (4x4096 -> s_rows 128) stay inside the 16 MB scoped limit
-    dblk = max(8, min(_WAVE_DBLK, (2 << 20) // (s_rows * 128) // 8 * 8))
-    dpad = -(-ndiag // dblk) * dblk
-
-    # barrel-shift skew: pad rows to length dpad, then roll row y right
-    # by y via log2 masked full-array rolls (each pass is an elementwise
-    # select + static roll — fully vectorized, no gather)
-    arr = jnp.pad(res, ((0, 0), (0, hpad - h), (0, dpad - w)))
-    yrow = jnp.arange(hpad, dtype=jnp.int32)[None, :, None]
-    k = 1
-    while k < hpad:
-        arr = jnp.where((yrow & k) != 0, jnp.roll(arr, k, axis=2), arr)
-        k <<= 1
-    # [B, Hpad, dpad] -> [dpad, B*h8, 128]
-    skew = (
-        arr.transpose(2, 0, 1).reshape(dpad, s_rows, 128)
-    )
+    hp = 1 << max(h - 1, 1).bit_length()
+    any_spec = pl.BlockSpec(memory_space=pl.ANY)
     out = pl.pallas_call(
-        functools.partial(
-            _cg2d_wavefront_kernel, w=w, h=h, h8=h8, dblk=dblk
-        ),
-        grid=(dpad // dblk,),
-        in_specs=[
-            pl.BlockSpec((dblk, s_rows, 128), lambda g: (g, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((dblk, s_rows, 128), lambda g: (g, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((dpad, s_rows, 128), jnp.uint8),
-        scratch_shapes=[
-            pltpu.VMEM((s_rows, 128), jnp.int32),
-            pltpu.VMEM((s_rows, 128), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
+        functools.partial(_cg2d_kernel, h=h, w=w, hp=hp, interpret=interpret),
+        grid=(b,),
+        in_specs=[any_spec],
+        out_specs=any_spec,
+        out_shape=jax.ShapeDtypeStruct((b, hp, w), jnp.uint8),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(4, min(16, hp // 256))
         ),
         interpret=interpret,
-    )(skew)
-    # inverse barrel shift: [dpad, S, 128] -> [B, Hpad, dpad], roll row y
-    # left by y, then crop
-    back = out.reshape(dpad, b, hpad).transpose(1, 2, 0)
-    k = 1
-    while k < hpad:
-        back = jnp.where((yrow & k) != 0, jnp.roll(back, -k, axis=2), back)
-        k <<= 1
-    return back[:, :h, :w]
+        name="cg2d_decode",
+    )(res)
+    return out[:, :h]
 
 
 def cg2d_decode(res: jax.Array) -> jax.Array:
-    """Wavefront CG2D reconstruction: pallas kernel on TPU, XLA scan
-    elsewhere (the kernel's interpret mode is far slower than the scan
-    for CPU tests; both are oracle-checked against each other)."""
-    if jax.default_backend() == "tpu":
-        return _cg2d_decode_pallas(res)
-    return _cg2d_decode_scan(res)
+    """Wavefront CG2D reconstruction of a [B,H,W] u8 residual batch: the
+    GPU kernel, or the numpy wavefront under the host engine
+    (fpv_tpu.backend decides)."""
+    if backend.engine() == "numpy":
+        from fpv_tpu.models.predictors import cg2d_decode_np
 
-
-_cg2d_decode_scan = jax.jit(_cg2d_decode_impl)
+        return jax.pure_callback(
+            cg2d_decode_np, jax.ShapeDtypeStruct(res.shape, jnp.uint8), res,
+            vmap_method="sequential",
+        )
+    return _cg2d_decode_kernel(res, interpret=backend.interpret())
 
 
 @jax.jit

@@ -8,9 +8,9 @@ Stream layout ("step-major descending"):
 * a plane batch of B frames is cut into chunks of K symbols (ceil(S/K) per
   frame, last chunk short); the chunk array is padded to a multiple of
   BLOCK_LANES = 1024 lanes (pad lanes have length 0);
-* lanes are grouped into blocks of 1024 = [8 sublanes x 128 lanes];
-* chunks longer than SEG_LEN = 512 are cut into ceil(K / SEG_LEN) segments
-  (the VMEM tile the kernels stream through; rANS state carries across
+* lanes are grouped into blocks of 1024;
+* chunks longer than SEG_LEN = 512 are cut into ceil(K / SEG_LEN) segments,
+  each with its own word region and count (rANS state carries across
   segments, so only one u32 state per chunk is ever stored — long chunks
   amortize the ~16 wasted bits each state costs);
 * each block's payload is the concatenation of its segments in ASCENDING
@@ -36,13 +36,10 @@ PROB_SCALE = 1 << PROB_BITS
 RANS_L = 1 << 15
 RENORM_SHIFT = 19  # emit while x >= freq << 19 ((L >> PROB_BITS) * 2^16)
 
-BLOCK_ROWS = 8
-BLOCK_COLS = 128
-BLOCK_LANES = BLOCK_ROWS * BLOCK_COLS  # 1024
+BLOCK_LANES = 1024
 
-# Segment length: the kernels' VMEM tile along the symbol-step axis.  A
-# format-level constant — the payload's (block, segment) grouping depends
-# on it.  chunk_len <= SEG_LEN streams are laid out exactly as before
+# Segment length along the symbol-step axis.  A format-level constant —
+# the payload's (block, segment) grouping depends on it.  chunk_len <= SEG_LEN streams are laid out exactly as before
 # segments existed (one segment).
 SEG_LEN = 512
 

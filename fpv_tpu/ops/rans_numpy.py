@@ -2,8 +2,8 @@
 
 Implements exactly the stream layout of fpv_tpu.ops.rans_layout.  Vectorized
 across all lanes per symbol step, so it is fast enough to serve as the CPU
-fallback while doubling as the bit-level oracle the Pallas kernels are tested
-against.
+fallback while doubling as the bit-level oracle the GPU kernels
+(fpv_tpu.ops.rans_triton) are tested against.
 """
 
 from __future__ import annotations

@@ -1,21 +1,20 @@
-"""Multi-host (DCN) stream and batch sharding.
+"""Multi-process stream and batch sharding.
 
 The reference is single-process: its only scaling axis is the in-process
-worker pool (fusion_power_video.cc:1199-1230).  The TPU-native equivalent
-for MULTI-HOST deployments is pure data parallelism over a process-spanning
-``jax.sharding.Mesh``: frames/batches shard over every chip of every host,
-the fused codec programs run SPMD (no cross-replica dependency exists in
-the codec itself — streams and batch sections are independent), and only
-the host-side gather of compressed bytes / decoded pixels crosses DCN
-(``jax.experimental.multihost_utils`` collectives; Gloo over TCP on the
-CPU test fixture, DCN on real multi-host TPU slices).
+worker pool (fusion_power_video.cc:1199-1230).  The device equivalent for
+multi-process deployments is pure data parallelism over a process-spanning
+``jax.sharding.Mesh``: frames/batches shard over every device of every
+process, the fused codec programs run SPMD (no cross-replica dependency
+exists in the codec itself — streams and batch sections are independent),
+and only the host-side gather of compressed bytes / decoded pixels crosses
+processes (``jax.experimental.multihost_utils`` collectives).
 
 Multi-controller model: every process runs the same program on the same
 file-level inputs and returns the same result; each process touches only
 its addressable shard of the device work.
 
-Tested without TPUs by spawning two CPU processes with four virtual
-devices each (tests/test_distributed.py), per the project test strategy.
+Tested by spawning two CPU processes with four virtual devices each
+(tests/test_distributed.py).
 """
 
 from __future__ import annotations
@@ -35,10 +34,9 @@ def initialize(
     """Join this process to a multi-host JAX cluster.
 
     Thin wrapper over ``jax.distributed.initialize`` so callers configure
-    the cluster through fpv_tpu.  On TPU pods the three arguments are
-    normally auto-detected (call with the defaults your launcher provides);
-    on the CPU test fixture they are explicit.  Must run before any JAX
-    computation in the process."""
+    the cluster through fpv_tpu.  The coordinator address (e.g.
+    ``localhost:<port>``), process count and process id are always given
+    explicitly.  Must run before any JAX computation in the process."""
     kwargs = {}
     if local_device_count is not None:
         kwargs["local_device_ids"] = list(range(local_device_count))
@@ -83,7 +81,7 @@ def _put_replicated_fn(mesh: Mesh):
 
 def _allgather(x) -> np.ndarray:
     """Gather a P('data')-sharded global array to full numpy on every
-    process (the DCN hop; host packaging needs the whole output)."""
+    process (the cross-process hop; host packaging needs the whole output)."""
     from jax.experimental import multihost_utils
 
     return np.asarray(multihost_utils.process_allgather(x, tiled=True))
@@ -108,7 +106,7 @@ def distributed_encode_file(
     single-process mesh (and therefore byte-identical to the single-device
     encode_file_fpvt in the fused-path regime) — the only differences are
     placement: inputs become global arrays built per-process from local
-    slices, and each group's compressed streams allgather over DCN so
+    slices, and each group's compressed streams allgather across processes so
     every process assembles the identical complete file."""
     from fpv_tpu.parallel import mesh as pmesh
 
@@ -133,7 +131,7 @@ def distributed_decode_file(data: bytes) -> np.ndarray:
     Batches are independent given the delta section, so this is pure data
     parallelism: each process decodes its batches on its own local
     devices (the existing single-process fused paths), and only the final
-    pixel gather crosses DCN.  This is the multi-host generalization of
+    pixel gather crosses processes.  This is the multi-host generalization of
     the serving hubs' per-device stream pinning."""
     from jax.experimental import multihost_utils
 
@@ -155,7 +153,7 @@ def distributed_decode_file(data: bytes) -> np.ndarray:
         for j, i in enumerate(range(pid, nb, nproc)):
             out = r.decode_batch(i)
             buf[j, : out.shape[0]] = out
-        # [nproc, n_max, bpb, h, w]: one DCN gather for all pixels
+        # [nproc, n_max, bpb, h, w]: one cross-process gather for all pixels
         g = np.asarray(multihost_utils.process_allgather(buf))
         for i in range(nb):
             outs[i] = g[i % nproc, i // nproc, : counts[i]]

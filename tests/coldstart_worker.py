@@ -13,7 +13,7 @@ import time
 def main() -> int:
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-    os.environ.setdefault("FPV_TPU_RANS_ENGINE", "pallas")
+    os.environ.setdefault("FPV_TPU_RANS_ENGINE", "interpret")
     os.environ.setdefault("FPV_TPU_NARROW_MAX", "0")
     import jax
 

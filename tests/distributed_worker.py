@@ -1,4 +1,4 @@
-"""Worker process for the two-process DCN sharding test.
+"""Worker process for the two-process sharding test.
 
 Spawned by tests/test_distributed.py: joins a 2-process JAX cluster with 4
 virtual CPU devices each (8 global), encodes a file over the
@@ -17,7 +17,7 @@ def main() -> int:
     # any backend initializes
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    os.environ["FPV_TPU_RANS_ENGINE"] = "pallas"
+    os.environ["FPV_TPU_RANS_ENGINE"] = "interpret"
     os.environ["FPV_TPU_NARROW_MAX"] = "0"
     import jax
 

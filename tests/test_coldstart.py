@@ -32,7 +32,7 @@ def test_warm_cache_speeds_up_fresh_process(tmp_path):
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    env["FPV_TPU_CACHE"] = str(tmp_path / "jit_cache")
+    env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / "jit_cache")
     cold = _run(env)
     entries = list((tmp_path / "jit_cache").iterdir())
     assert entries, "persistent cache wrote nothing"

@@ -1,10 +1,10 @@
-"""Multi-host (DCN) stream sharding: two real processes, one JAX cluster.
+"""Multi-process stream sharding: two real processes, one JAX cluster.
 
 Closes SURVEY §2.5's communication-backend row: the reference's only
 parallelism is an in-process thread pool (fusion_power_video.cc:1199-1230);
-the TPU-native build scales across HOSTS by pure data parallelism over a
+the device build scales across processes by pure data parallelism over a
 process-spanning mesh, with jax.distributed + multihost collectives (Gloo
-over TCP here; DCN on real multi-host TPU).  The test spawns 2 CPU
+over TCP here).  The test spawns 2 CPU
 processes with 4 virtual devices each and byte-/pixel-compares both
 directions against the single-process paths.
 """

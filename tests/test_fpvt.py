@@ -1,4 +1,4 @@
-"""FPVT (TPU-native profile) container + codec tests."""
+"""FPVT (device profile) container + codec tests."""
 
 import numpy as np
 import pytest
@@ -204,9 +204,9 @@ def test_fpvt_malformed_inputs_rejected():
 
 
 def test_fpvt_per_block_random_access(monkeypatch):
-    """decode_frame on the pallas engine decodes only the covering blocks
+    """decode_frame on the device engine decodes only the covering blocks
     (no batch decode, no cache fill) and matches the full decode."""
-    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "pallas")
+    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "interpret")
     # pin the 1024-lane device geometry: the narrow-stream policy would
     # otherwise host-code these tiny planes (no per-block path), and the
     # CODING_RAW policy would store them (wide-geometry states outweigh
@@ -223,7 +223,7 @@ def test_fpvt_per_block_random_access(monkeypatch):
         assert r._cache is None  # block path, not batch decode
 
 
-@pytest.mark.parametrize("engine", ["numpy", "pallas"])
+@pytest.mark.parametrize("engine", ["numpy", "interpret"])
 def test_fpvt_tiny_dims_roundtrip(engine, monkeypatch):
     """H<4 / W<4 frames have zero-pixel previews: the preview stream is
     skipped and both engines roundtrip (advisor finding: the numpy engine
@@ -421,7 +421,7 @@ def test_multistream_decoder_multi_device(monkeypatch):
     from fpv_tpu.api.fpvt_codec import encode_file_fpvt
     from fpv_tpu.api.multistream import MultiStreamDecoder
 
-    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "pallas")
+    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "interpret")
     # device geometry on tiny planes so the FUSED (pinned) path executes
     # (and coded streams, not CODING_RAW stores — see per-block RA test)
     monkeypatch.setenv("FPV_TPU_NARROW_MAX", "0")
@@ -568,7 +568,7 @@ def test_fused_pack_u8_matches_slow_path(monkeypatch):
     from fpv_tpu.api.fpvt_codec import FpvtReader, encode_file_fpvt
 
     frames = testdata.plasma_frames(6, 64, 128, bits=12, seed=11)
-    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "pallas")
+    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "interpret")
     # disable narrow streams so small test planes still get the 1024-lane
     # device geometry the fused program requires
     monkeypatch.setenv("FPV_TPU_NARROW_MAX", "0")
@@ -692,7 +692,7 @@ def test_temporal_prev_fused_paths_and_random_access(monkeypatch):
     mode): whole-batch decode, previews-in-program, and the single-frame
     random-access path, which must resolve prev chains by walking back to
     the anchor (fused_decode_frame with the previous frame's planes)."""
-    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "pallas")
+    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "interpret")
     n, h, w = 6, 32, 128
     frames = _drift_frames(n, h, w)
     want = _leftaligned(frames, 4)
@@ -719,7 +719,7 @@ def test_temporal_prev_fused_paths_and_random_access(monkeypatch):
 def test_temporal_prev_random_access_out_of_order(monkeypatch):
     """The chain cache must only accelerate, never corrupt: arbitrary
     access order (backward jumps, repeats, cross-batch) stays exact."""
-    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "pallas")
+    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "interpret")
     n, h, w = 12, 32, 128
     frames = _drift_frames(n, h, w)
     want = _leftaligned(frames, 4)

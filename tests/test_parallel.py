@@ -1,10 +1,18 @@
-"""Multi-device sharding tests on the virtual 8-device CPU mesh."""
+"""Multi-device sharding tests on the virtual 8-device CPU mesh.
+
+The sharded programs are the device path, so every test here asks for the
+GPU kernels in the Pallas interpreter."""
 
 import jax
 import numpy as np
 import pytest
 
 from fpv_tpu.parallel import mesh as pmesh
+
+
+@pytest.fixture(autouse=True)
+def _interpret_engine(monkeypatch):
+    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "interpret")
 
 
 def test_device_count():
@@ -14,6 +22,22 @@ def test_device_count():
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_multichip_dryrun(n):
     pmesh.multichip_dryrun(n)
+
+
+@pytest.mark.parametrize("sharded", [True, False])
+def test_per_device_pieces(sharded):
+    """_per_device: a P('data') array yields its own shards, one device
+    each, in device order; anything else is sliced."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    mesh = pmesh.make_mesh(4, data=4)
+    x = np.arange(24 * 3, dtype=np.int32).reshape(24, 3)
+    a = jax.device_put(x, NamedSharding(mesh, P("data"))) if sharded else x
+    pieces = pmesh._per_device(a, 4)
+    for d, piece in enumerate(pieces):
+        np.testing.assert_array_equal(np.asarray(piece), x[6 * d : 6 * (d + 1)])
+        if sharded:
+            assert piece.devices() == {mesh.devices.flat[d]}
 
 
 def test_sharded_model_step_matches_single_device():
@@ -190,7 +214,7 @@ def test_sharded_encode_file_byte_identical(monkeypatch):
     from fpv_tpu.api.fpvt_codec import decode_file_fpvt, encode_file_fpvt
     from fpv_tpu.utils import testdata
 
-    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "pallas")
+    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "interpret")
     monkeypatch.setenv("FPV_TPU_NARROW_MAX", "0")
     # keep streams CODED at these tiny sizes (raw-store parity has its own
     # test: test_raw.test_sharded_encode_raw_byte_identical)

@@ -11,7 +11,7 @@ Covered here: the stream-level serialize/parse roundtrip, the exact-size
 encoder decision (and its FPV_TPU_RAW=0 switch), end-to-end lossless
 roundtrips on both engines with prediction flags active (the fused
 packager re-derives residuals via _residual_planes_for_flags — byte parity
-between the fused/pallas writer and the slow/numpy writer proves that
+between the fused/device writer and the slow/numpy writer proves that
 recompute is integer-exact), every decode path (fused batch, slow, random
 access fallback, streaming, sharded), and the malformed-input guards.
 """
@@ -155,13 +155,13 @@ def test_raw_with_prediction_flags_roundtrip():
 
 
 def test_raw_fused_and_slow_writer_byte_parity(monkeypatch):
-    """The fused (pallas) writer's raw stores — recovered on device from
+    """The fused (device) writer's raw stores — recovered on device from
     the flags via _residual_planes_for_flags — are byte-identical to the
     numpy writer's, which stores the model step's residuals directly."""
     monkeypatch.setenv("FPV_TPU_NARROW_MAX", "0")  # force the fused path
     frames = _noisy_low_frames(5, 16, 32, seed=9)
     blobs = {}
-    for engine in ("numpy", "pallas"):
+    for engine in ("numpy", "interpret"):
         monkeypatch.setenv("FPV_TPU_RANS_ENGINE", engine)
         data = encode_file_fpvt(frames, frames_per_batch=4, chunk_log2=4)
         # at these tiny wide-geometry sizes every plane loses to raw
@@ -171,14 +171,14 @@ def test_raw_fused_and_slow_writer_byte_parity(monkeypatch):
         )
         np.testing.assert_array_equal(decode_file_fpvt(data), frames)
         blobs[engine] = data
-    assert blobs["numpy"] == blobs["pallas"]
+    assert blobs["numpy"] == blobs["interpret"]
 
 
 def test_raw_fused_decode_matches_slow(monkeypatch):
-    """fused_decode_batch's in-program raw unpack (pallas engine) matches
+    """fused_decode_batch's in-program raw unpack (device engine) matches
     the per-plane slow path on a mixed raw/coded file."""
     frames = _noisy_low_frames(6, 16, 256, seed=13)
-    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "pallas")
+    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "interpret")
     monkeypatch.setenv("FPV_TPU_NARROW_MAX", "0")
     data = encode_file_fpvt(frames, frames_per_batch=3, chunk_log2=6)
     r = FpvtReader(data)
@@ -217,7 +217,7 @@ def test_sharded_encode_raw_byte_identical(monkeypatch):
     sharded_decode_file groups/decodes raw sections in-program."""
     from fpv_tpu.parallel import mesh as pmesh
 
-    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "pallas")
+    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "interpret")
     monkeypatch.setenv("FPV_TPU_NARROW_MAX", "0")
     D, h, w, bpb = 2, 16, 16, 2
     m = pmesh.make_mesh(D, data=D)
